@@ -1,6 +1,6 @@
-"""eggshell_tpu — a TPU-native rigid-body / FEM simulation framework.
+"""eggshell_tpu — a batched, differentiable rigid-body / FEM simulation framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the
+A ground-up JAX/XLA re-design of the capabilities of the
 `teenylasers/eggshell` C++ workspace:
 
 - ``eggshell_tpu.ops``      — core math kernels: quaternions, SAT box-box
@@ -8,7 +8,7 @@ A ground-up JAX/XLA/Pallas re-design of the capabilities of the
 - ``eggshell_tpu.physics``  — batched rigid-body scenes: bodies, joints,
   contacts, the constraint-based ODE-style time stepper.
 - ``eggshell_tpu.parallel`` — device-mesh sharding of scenario batches
-  (vmap within a chip, shard_map across chips/hosts).
+  (vmap within a device, shard_map across devices/hosts).
 - ``eggshell_tpu.mpc``      — sampling / gradient model-predictive control
   on top of differentiable rollouts.
 - ``eggshell_tpu.oracle``   — slow-but-sure NumPy re-derivations used as

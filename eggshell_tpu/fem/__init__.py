@@ -12,7 +12,7 @@
              (ref rama/solver.h:185-224).
 - eigen:     waveguide modes / cavity eigenfrequencies via LOBPCG
              (ref toolkit/eigensolvers.h ARPACK shift-invert).
-- fdtd:      2D FDTD core with a Pallas stencil kernel
+- fdtd:      2D TMz and 3D Yee FDTD cores
              (ref toolkit/fdtd.{h,cc}).
 """
 

@@ -2,13 +2,8 @@
 
 2D TMz Yee scheme (Ez, Hx, Hy) and a minimal 3D Yee scheme, in
 normalised units (c = eps0 = mu0 = 1).  PEC voxel masks (ref fdtd
-`PEC` masks) zero the tangential E field.  The per-step update is
-available two ways:
-
-- `step_2d`: plain jnp stencil update (XLA fuses this well);
-- `step_2d_pallas`: the same update as one fused Pallas kernel — the
-  natural TPU stencil showcase (loads the field tile once, applies both
-  half-updates in VMEM).
+`PEC` masks) zero the tangential E field.  `step_2d` is the plain jnp
+stencil update, which XLA fuses into a few kernels.
 
 `simulate_2d` scans the update over time with optional soft source and
 probe recording.
@@ -21,8 +16,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 class Field2D(NamedTuple):
@@ -104,59 +97,6 @@ def simulate_2d(
         return fld, out
 
     return jax.lax.scan(body, f, jnp.arange(num_steps))
-
-
-# ---------------------------------------------------------------------------
-# Pallas fused step (2D)
-
-
-def _fdtd_kernel(ez_ref, hx_ref, hy_ref, inv_eps_ref, pecf_ref,
-                 ezo_ref, hxo_ref, hyo_ref, *, c):
-    # All updates are expressed as shifted-slice CONCATENATIONS, not
-    # .at[].add masked scatters: Mosaic has no scatter-add lowering, so
-    # the scatter form compiled only in interpret mode (latent TPU
-    # failure found by the round-5 hardware bench).
-    ez = ez_ref[:]
-    # H half-step (padded H grids: same shape as ez; rims unused)
-    hx = hx_ref[:]
-    hy = hy_ref[:]
-    zc = jnp.zeros_like(ez[:, :1])       # zero column
-    zr = jnp.zeros_like(ez[:1, :])       # zero row
-    dzy = ez[:, 1:] - ez[:, :-1]
-    hx = hx - c * jnp.concatenate([dzy, zc], axis=1)
-    dzx = ez[1:, :] - ez[:-1, :]
-    hy = hy + c * jnp.concatenate([dzx, zr], axis=0)
-
-    curl_x = jnp.concatenate([zr, hy[1:-1, :] - hy[:-2, :], zr], axis=0)
-    curl_y = jnp.concatenate([zc, hx[:, 1:-1] - hx[:, :-2], zc], axis=1)
-    ez = ez + c * inv_eps_ref[:] * (curl_x - curl_y)
-    ez = ez * pecf_ref[:]  # 0 on PEC / rim, 1 elsewhere
-    ezo_ref[:] = ez
-    hxo_ref[:] = hx
-    hyo_ref[:] = hy
-
-
-@functools.partial(jax.jit, static_argnames=("dt", "dx", "interpret"))
-def step_2d_pallas(
-    ez, hx_pad, hy_pad, inv_eps, pec_free, dt, dx, interpret: bool = False
-):
-    """Fused 2D update.  H fields are carried on ez-shaped padded grids
-    (hx_pad[:, :-1] and hy_pad[:-1, :] live; rims zero).  `pec_free` is a
-    float mask: 0 on PEC cells and the outer rim, 1 elsewhere."""
-    c = float(dt / dx)
-    kernel = functools.partial(_fdtd_kernel, c=c)
-    spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        in_specs=[spec] * 5,
-        out_specs=(spec, spec, spec),
-        out_shape=(
-            jax.ShapeDtypeStruct(ez.shape, ez.dtype),
-            jax.ShapeDtypeStruct(ez.shape, ez.dtype),
-            jax.ShapeDtypeStruct(ez.shape, ez.dtype),
-        ),
-        interpret=interpret,
-    )(ez, hx_pad, hy_pad, inv_eps, pec_free)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ rama/cavity_qt.cc:70-96).
 
 The probe path is host-side NumPy (it serves plotting / test
 assertions); the multi-frequency sweep is a single `vmap`-ed complex
-solve on device — the TPU-native replacement for the reference's
+solve on device — the batched replacement for the reference's
 thread-per-frequency `Solvers::Solve` (rama/solver.h:351-355).
 """
 
@@ -184,7 +184,7 @@ def solve_sweep(mesh: Mesh, config, frequencies: Sequence[float],
     The reference runs one thread per frequency (rama/solver.h:351-355);
     here the frequencies ride a `vmap` batch dimension through the
     shared plan/core (helmholtz.make_driven_fn) — dense systems batch on
-    the MXU; large sparse systems factor per-frequency on the host.
+    the device; large sparse systems factor per-frequency on the host.
 
     Ports with numerical (dielectric-loaded) mode profiles are frozen at
     the plan frequency and re-planned per frequency instead (matching

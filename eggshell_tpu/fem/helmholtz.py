@@ -37,7 +37,7 @@ Dirichlet masks); `solve_driven_core` is a pure jnp function of
 projects S-parameters — fully jit-able and differentiable end-to-end
 (the analog of the reference's jets threaded through assembly+solve,
 rama/my_jet.h, solver.h:272-277).  Small systems densify and solve on
-the MXU; large systems use the host-factorized `fem.sparse.sparse_solve`
+the device; large systems use the host-factorized `fem.sparse.sparse_solve`
 (SimplicialLLT/SparseLU analog, toolkit/femsolver.h:134-135) wrapped in
 `lax.custom_linear_solve` so AD still works.
 """
@@ -264,7 +264,7 @@ class DrivenPlan:
     # instead of the host SuperLU callback (use_sparse must be True)
     iterative: bool = False
     # "bcr": on-device block-tridiagonal cyclic-reduction direct solve
-    # (fem/block_tridiag.py) — banded/RCM-reordered meshes, MXU batched
+    # (fem/block_tridiag.py) — banded/RCM-reordered meshes, batched
     bcr_structure: Optional[object] = None
 
     @property
@@ -287,7 +287,7 @@ def _edge_tri_adjacency(mesh: Mesh, edges: np.ndarray) -> np.ndarray:
     return out
 
 
-DENSE_MAX_N = 1200   # densify below this (one (N,N) complex MXU solve)
+DENSE_MAX_N = 1200   # densify below this (one (N,N) complex dense solve)
 
 
 def plan_driven(
@@ -577,14 +577,9 @@ def _port_quantities(pp: PortPlan, pts, eps_tri, Wxx, Wyy, Wxy, k2_eff,
 
 
 def solve_driven_core(pts, eps_tri, sxx, syy, sxy, exc_tri, k0,
-                      plan: DrivenPlan, return_flux: bool = False,
-                      solve_override=None):
+                      plan: DrivenPlan, return_flux: bool = False):
     """Assemble + solve + project S-parameters.  Pure jnp function of the
     traced inputs; static structure from `plan`.
-
-    `solve_override(vals, rhs) -> u` replaces the configured linear
-    solve (used by the hybrid CPU-assembly + TPU-BCR bench path on
-    accelerators without complex-dtype support).
 
     Returns (u (N,) complex, s (num_ports, num_modes) complex); with
     `return_flux` also the per-port-mode power-flux weights
@@ -735,9 +730,7 @@ def solve_driven_core(pts, eps_tri, sxx, syy, sxy, exc_tri, k0,
         )
         rhs = jnp.where(dmask, g, rhs)
 
-    if solve_override is not None:
-        u = solve_override(vals, rhs)
-    elif plan.use_sparse:
+    if plan.use_sparse:
         if plan.bcr_structure is not None:
             from eggshell_tpu.fem.block_tridiag import block_tridiag_solve
 

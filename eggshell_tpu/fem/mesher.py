@@ -7,7 +7,7 @@ each Delaunay edge pushes with force max(L0 - L, 0); boundary points
 project back onto the zero level set via the numerical SDF gradient.
 scipy.spatial.Delaunay supplies the triangulation at each retriangulation
 step (host-side preprocessing, like the reference's mesher — meshing is
-not the TPU hot path; the FEM solves are).
+not the device hot path; the FEM solves are).
 
 The resulting `Mesh` carries boundary-edge attributes resolved from the
 shape's painted Port/ABC segments (EdgeInfo analog, rama/mesh.h:21-80)

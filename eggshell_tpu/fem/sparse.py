@@ -13,7 +13,7 @@ forward- and reverse-mode derivatives via the implicit function theorem
 differentiation through the factorization itself.
 
 For moderate systems, `coo_to_dense` + `jnp.linalg.solve` keeps the
-whole pipeline on-device (the MXU path); `sparse_solve` takes over when
+whole pipeline on-device (the dense path); `sparse_solve` takes over when
 N makes the dense (N, N) factor infeasible.  `coo_matvec` supports
 on-device iterative solves (jax.scipy BiCGStab/GMRES) where host
 round-trips are unwanted.
@@ -71,7 +71,7 @@ def sparse_solve(rows, cols, vals, b, num_rows: int, symmetric: bool = True):
 
     Differentiable in `vals` and `b` (forward and reverse) through
     `lax.custom_linear_solve`: tangents/cotangents re-use solves of the
-    same system — the TPU-native analog of the reference propagating jets
+    same system — the analog of the reference propagating jets
     through its sparse solve (rama/solver.h:272-277).
 
     `symmetric=True` (our FEM matrices: K, M, and boundary-mass terms are

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from eggshell_tpu.physics.scene import SceneSpec, State
 from eggshell_tpu.physics.stepper import step_ode
 from eggshell_tpu.utils.config import SimConfig
+from eggshell_tpu.utils.precision import full_precision
 
 
 def rollout_controlled(
@@ -63,6 +64,7 @@ def rollout_controlled(
     static_argnames=("cfg", "controlled_body", "cost_fn", "num_samples",
                      "temperature", "noise_mode", "substeps"),
 )
+@full_precision
 def mppi_update(
     spec: SceneSpec,
     state: State,
@@ -122,11 +124,11 @@ def rollout_controlled_batched(
     running_cost: Optional[Callable[[State], jax.Array]] = None,
     substeps: int = 1,
 ):
-    """Batched controlled rollout on the FUSED KERNEL path: every step of
-    every sample is one `step_ode_batched` call, so with
+    """Batched controlled rollout on the bench path: every step of every
+    sample is one `step_ode_batched` call, so with
     SolverKind.JACOBI_KERNEL the whole sample population's contact QPs
-    run as single Pallas kernel launches (the bench hot path) instead of
-    a vmap of single-scene solves.  Returns (final_states (S, ...),
+    go to the batched sweep (ops/lcp_kernel) instead of a vmap of
+    single-scene solves.  Returns (final_states (S, ...),
     total_running_cost (S,))."""
     from eggshell_tpu.physics.stepper import step_ode_batched
 
@@ -160,6 +162,7 @@ def rollout_controlled_batched(
     static_argnames=("cfg", "controlled_body", "cost_fn", "num_samples",
                      "temperature", "noise_mode", "substeps"),
 )
+@full_precision
 def mppi_update_batched(
     spec: SceneSpec,
     state: State,
@@ -174,7 +177,7 @@ def mppi_update_batched(
     noise_mode: str = "white",
     substeps: int = 1,
 ):
-    """`mppi_update` on the fused-kernel rollout path (see
+    """`mppi_update` on the batched rollout path (see
     `rollout_controlled_batched`) — the configuration the MPC benchmark
     measures (BASELINE config #5)."""
     H = mean_controls.shape[0]

@@ -2,7 +2,7 @@
 
 The reference provides D-dimensional AABBs + a sweep-and-prune that
 returns overlapping pairs (toolkit/collision.h:22-45); eggshell itself
-tests all pairs (eggshell/ensembles.cc:460-474).  TPU-native version:
+tests all pairs (eggshell/ensembles.cc:460-474).  Fixed-shape version:
 
 - `box_aabbs`: world AABBs of oriented boxes (|R| trick, one fused op).
 - `pair_overlap_mask`: AABB overlap test for a static candidate pair
@@ -42,10 +42,8 @@ def pair_overlap_mask(
     """(P,) bool: candidate pairs whose AABBs overlap.
 
     Computed as a full (n, n) broadcast overlap matrix followed by ONE
-    boolean gather per pair — at pile scale (n=512, P=131k) the
-    broadcast form is ~10x cheaper on TPU than gathering 4 x (P, 3)
-    AABB corners per pair (gathers are the bottleneck, not the
-    arithmetic)."""
+    boolean gather per pair instead of gathering 4 x (P, 3) AABB
+    corners per pair."""
     lo, hi = box_aabbs(p, q, half_extents, margin)
     M = aabb_overlap(
         lo[:, None, :], hi[:, None, :], lo[None, :, :], hi[None, :, :]
@@ -81,7 +79,7 @@ def sap_select_pairs(
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Sorted sweep-and-prune pair selection — the actual sorted-list
     analog of the reference broadphase (toolkit/collision.h:22-45,
-    sorted AABB endpoints swept along one axis), shaped for TPU.
+    sorted AABB endpoints swept along one axis), in fixed shapes.
 
     Bodies are argsorted by AABB min-x; a pair can only overlap in x if
     their sorted ranks are within `window` of each other (window plays
@@ -159,7 +157,7 @@ def select_scene_pairs(spec, state, cfg):
     """Per-scene broadphase: AABB-prune spec's candidate pairs and
     compact them into cfg.pair_capacity lanes.  Dispatches on
     cfg.broadphase_kind: "mask" = (n, n) broadcast overlap + top_k
-    (the TPU default — cheapest below ~1k bodies), "sap" = sorted
+    (the default), "sap" = sorted
     sweep-and-prune strip (wins at larger n; falls back to mask when
     the spec's pair list is not the canonical all-pairs set)."""
     try:
@@ -182,8 +180,7 @@ def select_scene_pairs(spec, state, cfg):
 def sweep_and_prune_pairs(lo: jax.Array, hi: jax.Array, capacity: int):
     """All-axis AABB pruning over ALL n^2/2 pairs, compacted to a fixed
     capacity — the dense-mask analog of the reference's sweep-and-prune
-    (toolkit/collision.cc).  For n up to a few hundred the full mask is
-    cheaper on TPU than maintaining sorted endpoint lists."""
+    (toolkit/collision.cc), without sorted endpoint lists."""
     n = lo.shape[0]
     i = jnp.arange(n)
     pair_mask = (

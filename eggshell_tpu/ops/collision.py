@@ -1,6 +1,6 @@
-"""Branchless SAT box-box and box-ground collision, batched for TPU.
+"""Branchless SAT box-box and box-ground collision, batched.
 
-TPU-native re-design of the reference narrowphase
+Fixed-shape re-design of the reference narrowphase
 (eggshell/collision.cc:166-432):
 
 - 15 separating axes: 6 face normals + 9 edge x edge (ref :215-276).
@@ -95,8 +95,8 @@ def _clip_halfspace(poly, count, normal, d):
     offs = jnp.cumsum(contrib) - contrib  # exclusive prefix sum
     new_count = jnp.sum(contrib).astype(jnp.int32)
 
-    # Emit via one-hot selection matrices instead of scatters (scatters
-    # are catastrophically slow on TPU; this is two small matmuls).
+    # Emit via one-hot selection matrices instead of scatters: two small
+    # matmuls, run at HIGHEST precision (utils/precision).
     slots = jnp.arange(MAX_POLY)
     sel_vert = (offs[None, :] == slots[:, None]) & inside[None, :]
     sel_cross = (

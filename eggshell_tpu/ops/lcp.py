@@ -1,6 +1,6 @@
-"""Projected splitting iterations for mixed LCPs, batched for TPU.
+"""Projected splitting iterations for mixed LCPs, batched over scenes.
 
-TPU-native re-design of the reference's iterative contact solvers
+Batched re-design of the reference's iterative contact solvers
 (eggshell/sparse_iterations.cc, sparse_iterations_utils.cc):
 
 Problem:  A x = b + w  with per-row semantics
@@ -18,11 +18,13 @@ each with per-element projection onto [lo, hi] applied *during* the
 triangular solve (ref sparse_iterations_utils.cc:12-21 ApplyProjection,
 :110-128 MatrixSolveLowerTriangle).
 
-Design notes (TPU):
+Design notes:
   - One QP is small (tens to a few hundred rows); thousands of independent
     QPs run per step.  All functions are written for a single QP and
     `vmap` over the scenario batch — the sequential sweep over rows is
-    then amortised: each row update is a (batch,)-wide VPU op.
+    then amortised: each row update is a (batch,)-wide op.
+  - A x runs at HIGHEST precision: on the GPU a float32 product may
+    otherwise run in TF32.
   - `iters` is static; convergence checking is optional (costs a residual
     per sweep) and off on the hot path — the reference's budget of 500
     sweeps with early exit (ref :130) becomes a fixed sweep count chosen
@@ -36,6 +38,10 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+
+
+def _mv(A, x):
+    return jnp.matmul(A, x, precision=jax.lax.Precision.HIGHEST)
 
 
 def project(x, is_eq, lo, hi):
@@ -122,9 +128,9 @@ def _jacobi_sweep(A, b, x, is_eq, lo, hi, omega=1.0, couple=None, mu=0.0):
     Plain Jacobi (omega=1) diverges on redundant contact systems (the
     splitting's spectral radius exceeds 1); omega <= ~0.3 is stable on
     the benchmark stacks and keeps the sweep a single batched matvec —
-    the massively parallel TPU alternative to the sequential GS sweep."""
+    the massively parallel alternative to the sequential GS sweep."""
     diag = jnp.diagonal(A)
-    r = b - A @ x + diag * x
+    r = b - _mv(A, x) + diag * x
     lo_e, hi_e = _bounds(x, lo, hi, couple, mu)
     return project((1.0 - omega) * x + omega * (r / diag), is_eq, lo_e, hi_e)
 
@@ -159,13 +165,13 @@ def solve_lcp(
     warm start (ref sparse_iterations.cc:124).  With check_tol set, sweeps
     stop early once the complementarity residual drops below it (costs one
     residual evaluation per sweep, ref :128-140); with None, runs exactly
-    `iters` sweeps (the TPU hot path — no data-dependent exit).
+    `iters` sweeps (the hot path — no data-dependent exit).
 
     `jacobi_beta` adds heavy-ball momentum to the jacobi sweep:
     x <- proj((1-w) x + w D^-1 r + beta (x - x_prev)) — the exact update
-    of the fused Pallas kernel (ops/pgs_kernel._jacobi_kernel), so the
-    bench solver configuration is reproducible on the XLA path for
-    oracle-parity gating.
+    of the fused sweep kernel (ops/lcp_kernel), so the bench solver
+    configuration is reproducible on the XLA path for oracle-parity
+    gating.
     """
     x = b if x0 is None else x0
     x = project(x, is_eq, lo, hi)
@@ -175,9 +181,7 @@ def solve_lcp(
     elif method == "jacobi":
         if jacobi_block:
             # block-Jacobi: each 3-row constraint block solved exactly
-            # per sweep, the XLA twin of the packed kernel's block mode
-            # (ops/pgs_kernel._jacobi_packed_kernel, block=True) —
-            # identical update incl. the adjugate-inverse formulation.
+            # per sweep (3x3 adjugate inverses).
             m = b.shape[0]
             assert m % 3 == 0, "block mode needs 3-row constraint blocks"
             K3 = m // 3
@@ -206,7 +210,7 @@ def solve_lcp(
             )                                                # (K3, 3, 3)
 
             def sweep(xx, xp):
-                rv = b - A @ xx
+                rv = b - _mv(A, xx)
                 y = xx + jnp.einsum(
                     "krc,kc->kr", Binv, rv.reshape(K3, 3)
                 ).reshape(m)
@@ -219,11 +223,11 @@ def solve_lcp(
                 return xn, xx
         elif jacobi_beta:
             # single projection around update+momentum, matching the
-            # kernel exactly (ops/pgs_kernel.py:75-78)
+            # kernel exactly (ops/lcp_kernel._jacobi_kernel)
             diag = jnp.diagonal(A)
 
             def sweep(xx, xp):
-                r = b - A @ xx + diag * xx
+                r = b - _mv(A, xx) + diag * xx
                 lo_e, hi_e = _bounds(xx, lo, hi, couple, mu)
                 xn = project(
                     (1.0 - jacobi_omega) * xx
@@ -292,7 +296,7 @@ def solve_lcp_implicit(A, b, is_eq, lo, hi, iters=100, method="pgs",
     Clamped rows propagate gradients to their bound (lo/hi).
 
     `jacobi_beta`/`jacobi_block` select the heavy-ball / 3x3-block sweep
-    variants so the forward solution matches the fused Pallas kernel's
+    variants so the forward solution matches the batched JACOBI_KERNEL
     configuration exactly (the backward pass only needs the solution, not
     the sweep rule).
     """
@@ -309,14 +313,34 @@ def _sli_fwd(A, b, is_eq, lo, hi, iters, method, jacobi_omega, active_eps,
     return x, (A, b, is_eq, lo, hi, x)
 
 
-def ift_adjoint(A, b, is_eq, lo, hi, x, g, eps=1e-8):
+def _adjoint_lu(M, r):
+    return jnp.linalg.solve(M.T, r)
+
+
+def _adjoint_cholesky(M, r):
+    L = jnp.linalg.cholesky(0.5 * (M + M.T))
+    return jax.scipy.linalg.cho_solve((L, True), r)
+
+
+_ADJOINT_SOLVES = {"lu": _adjoint_lu, "cholesky": _adjoint_cholesky}
+
+
+def ift_adjoint(A, b, is_eq, lo, hi, x, g, eps=1e-8, factorization=None):
     """Shared implicit-function-theorem LCP adjoint: given the solution
     x of the mixed box LCP and the output cotangent g, return
     (gA, gb, glo, ghi).  At the solution the active set is fixed, so x
     solves the reduced linear system on the free rows; clamped rows
     propagate to their bound.  Used by both the iterative
     `solve_lcp_implicit` and the direct pivot solver's VJP
-    (ops/lcp_direct.mixed_constraints_solver_implicit)."""
+    (ops/lcp_direct.mixed_constraints_solver_implicit).
+
+    A is symmetric PSD + cfm on the free block (J Minv J^T), so the
+    masked system is symmetric PD and admits one Cholesky factor.
+    `factorization` ("lu" / "cholesky") forces one; by default a GPU
+    computation uses Cholesky, measured 1.29x faster than LU at the
+    gradient-MPC shape (B=4096, m=60, H100; PERF.md), and every other
+    platform pivoted LU (the CPU's f64 oracle tests run cfm ~ 1e-9
+    redundant systems where pivoting is the safer factorization)."""
     free = is_eq | ((x > lo + eps) & (x < hi - eps))
     at_lo = (~free) & (x <= lo + eps)
     at_hi = (~free) & (~at_lo)
@@ -324,26 +348,18 @@ def ift_adjoint(A, b, is_eq, lo, hi, x, g, eps=1e-8):
     n = x.shape[0]
     eye = jnp.eye(n, dtype=A.dtype)
     M = jnp.where(free[:, None] & free[None, :], A, eye)
-    if jax.default_backend() == "tpu":
-        # A is symmetric PSD + cfm on the free block (J Minv J^T), so
-        # the masked system is symmetric PD: one Cholesky factor+solve
-        # instead of pivoted LU — partial pivoting is a sequential
-        # scalar loop on TPU and dominated the gradient-MPC backward
-        # pass.  (CPU keeps LU: the f64 oracle tests run cfm ~ 1e-9
-        # redundant systems where pivoting is the safer factorization.)
-        Ms = 0.5 * (M + M.T)
-        L = jnp.linalg.cholesky(Ms)
-        u = jax.scipy.linalg.cho_solve(
-            (L, True), jnp.where(free, g, 0.0)
-        )
+    rhs = jnp.where(free, g, 0.0)
+    if factorization is None:
+        u = jax.lax.platform_dependent(M, rhs, default=_adjoint_lu,
+                                       cuda=_adjoint_cholesky)
     else:
-        u = jnp.linalg.solve(M.T, jnp.where(free, g, 0.0))
+        u = _ADJOINT_SOLVES[factorization](M, rhs)
     u = jnp.where(free, u, 0.0)
 
     gb = u
     gA = -u[:, None] * x[None, :]
     # clamped rows: dL/dbound = g_c - A[:,c]^T u  (direct + coupling terms)
-    gbound = g - A.T @ u
+    gbound = g - _mv(A.T, u)
     glo = jnp.where(at_lo, gbound, 0.0)
     ghi = jnp.where(at_hi, gbound, 0.0)
     return gA, gb, glo, ghi
@@ -367,12 +383,11 @@ def adopt_lcp_solution(A, b, is_eq, lo, hi, x_saved):
 
     Forward: returns x_saved unchanged — zero sweeps.  Backward: the
     same one-adjoint-solve rule as `solve_lcp_implicit`.  Used by the
-    fused-kernel step's backward pass: the Pallas forward already solved
-    the LCP, so the differentiable twin adopts that solution instead of
-    re-running cfg.solver_iters sweeps inside the VJP recompute
-    (round-4 VERDICT weak #1: the recompute made kernel-IFT slower than
-    plain unrolling).  x_saved receives no gradient (it is a residual
-    from the primal pass, not an independent input)."""
+    JACOBI_KERNEL step's backward pass: the forward already solved the
+    LCP, so the differentiable twin adopts that solution instead of
+    re-running cfg.solver_iters sweeps inside the VJP recompute.
+    x_saved receives no gradient (it is a residual from the primal
+    pass, not an independent input)."""
     return x_saved
 
 

@@ -3,7 +3,7 @@
 JIT-able Murty principal pivot and Schur-complement mixed solver with
 *fixed shapes*: the active set is a boolean mask and the per-pivot
 sub-solve A(S,S) x_S = b_S is expressed as a full-size masked linear
-system, so every iteration is one n x n `linalg.solve` on the MXU —
+system, so every iteration is one n x n `linalg.solve` on the device —
 no dynamic index sets (vs. ref eggshell/lcp.cc:202-206 which gathers a
 shrinking submatrix).
 

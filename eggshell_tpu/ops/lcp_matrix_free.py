@@ -9,9 +9,8 @@ single scene with hundreds of bodies (the living-room clutter scaled
 up) wants the matrix-free form: memory O(K) instead of O(K^2), and the
 matvec is two segment-sums plus per-body 6x6 applications.
 
-Representation: compact per-lane blocks, exactly the fused-kernel
-layout (ops/jassembly_kernel) — each constraint lane k contributes 3
-rows that touch at most two bodies:
+Representation: compact per-lane blocks — each constraint lane k
+contributes 3 rows that touch at most two bodies:
 
   blocks (K, 3, 12): columns 0:6 = slot0 (body b0) [lin|ang], 6:12 =
   slot1 (body b1); b0/b1 (K,) int32 with -1 = ground/anchor (no body).
@@ -26,6 +25,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+
+from eggshell_tpu.utils.precision import HIGHEST
 
 
 def compact_blocks(sys, cs, spec):
@@ -122,16 +123,15 @@ def solve_lcp_matrix_free(
     (ref matrix-free BaseIteration, sparse_iterations.cc:148-226).
 
     matvec_mode:
-      "segment"  per-iteration segment-sum scatter-add (exact, but
-                 scatter-bound on TPU: ~0.6 ms/sweep at pile512 shapes)
+      "segment"  per-iteration segment-sum scatter-add
       "onehot"   incidence MATMULS: the per-solve-constant one-hot
                  body-incidence matrices O0/O1 (n, K) turn both the
                  scatter (J^T accumulate) and the gather (J apply) into
-                 MXU matmuls — the TPU answer to the reference's
-                 per-constraint loops (sparse_iterations_utils.cc
-                 :624-695); ~6x faster at pile512 shapes
-      "auto"     "onehot" when n * K is large enough for the MXU to
-                 win, else "segment"
+                 matrix products (the reference's per-constraint loops,
+                 sparse_iterations_utils.cc:624-695), at HIGHEST
+                 precision so a TF32 product cannot round them
+      "auto"     "onehot" when n * K >= 2**18, else "segment" (a
+                 threshold not yet measured on the GPU)
 
     Intended for one LARGE scene (hundreds of bodies/contacts); for
     thousands of small batched QPs the dense kernels win."""
@@ -154,10 +154,11 @@ def solve_lcp_matrix_free(
             xl = x.reshape(K, 3)
             c0 = jnp.einsum("krc,kr->kc", blk0, xl)     # (K, 6)
             c1 = jnp.einsum("krc,kr->kc", blk1, xl)
-            y = O0 @ c0 + O1 @ c1                       # (n, 6) MXU
+            y = (jnp.matmul(O0, c0, precision=HIGHEST)
+                 + jnp.matmul(O1, c1, precision=HIGHEST))       # (n, 6)
             y = jnp.einsum("nij,nj->ni", Minv, y)
-            v0 = O0.T @ y                               # (K, 6) MXU
-            v1 = O1.T @ y
+            v0 = jnp.matmul(O0.T, y, precision=HIGHEST)          # (K, 6)
+            v1 = jnp.matmul(O1.T, y, precision=HIGHEST)
             r0 = jnp.einsum("krc,kc->kr", blk0, v0)
             r1 = jnp.einsum("krc,kc->kr", blk1, v1)
             return (r0 + r1).reshape(-1) + cfm * x

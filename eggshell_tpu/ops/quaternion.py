@@ -1,6 +1,6 @@
 """Quaternion / SO(3) primitives, batched and differentiable.
 
-TPU-native replacement for the reference's rotation utilities
+Batched replacement for the reference's rotation utilities
 (eggshell/utils.cc: CrossMat :16, WtoQ :82, GramSchmidt :66,
 AlignVectors :233, random rotations :50-64).  Quaternions (w, x, y, z)
 are the primary rotation state — the reference stores 3x3 matrices and

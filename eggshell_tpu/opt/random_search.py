@@ -1,6 +1,6 @@
 """Random-search optimisation — toolkit RandomSearchOptimizer equivalent
 (toolkit/optimizer.h:221-247): uniform sampling within bounds, keep the
-best.  Fully parallel on TPU: all samples evaluate in one vmap."""
+best.  Fully parallel: all samples evaluate in one vmap."""
 
 from __future__ import annotations
 

@@ -1,14 +1,16 @@
-"""Device-mesh scaling: shard scenario batches over chips/hosts.
+"""Device-mesh scaling: shard scenario batches over devices/hosts.
 
 The new first-class distribution component (SURVEY.md §2.9) — the
 reference's only concurrency is a worker-thread ParallelFor
 (toolkit/thread.cc:20-60).  Here:
 
-  - a 1-D (or ('dcn','ici')) `jax.sharding.Mesh` over all devices;
+  - a 1-D `jax.sharding.Mesh` over all devices (on one host the GPUs
+    are joined all to all by NVLink, so the mesh follows the algorithm
+    alone);
   - `shard_map`-ed batched rollouts: each device steps its local shard
     of scenarios (zero cross-device traffic in the rollout itself);
   - `psum` reductions over the mesh for MPC costs/residuals — these are
-    the only collectives, and they ride ICI within a slice.
+    the only collectives (NCCL on GPUs).
 
 Multi-host: call `jax.distributed.initialize()` per host before building
 the mesh; each host feeds its local shard (host-local arrays with a
@@ -29,6 +31,7 @@ from jax import shard_map
 from eggshell_tpu.physics.scene import SceneSpec, State
 from eggshell_tpu.physics.stepper import step_ode
 from eggshell_tpu.utils.config import SimConfig
+from eggshell_tpu.utils.precision import HIGHEST
 
 
 # jit-callable cache: shard_map closures are rebuilt per call, which
@@ -189,9 +192,9 @@ def sharded_mppi_update(
     its shard), and the soft-min weights are normalized with pmin/psum
     collectives.  Returns (new_mean_controls, costs) with costs sharded.
 
-    This is the production multi-chip MPC step (SURVEY.md §2.9): rollout
-    compute is embarrassingly parallel; only three scalars/(H, 6)
-    tensors cross ICI per iteration."""
+    This is the production multi-device MPC step (SURVEY.md §2.9):
+    rollout compute is embarrassingly parallel; only three scalars/(H, 6)
+    tensors cross between devices per iteration."""
     from eggshell_tpu.mpc.sampling import rollout_controlled
 
     H = mean_controls.shape[0]
@@ -233,7 +236,8 @@ def sharded_mppi_update(
         beta = jax.lax.pmin(jnp.min(costs), axis)
         w = jnp.exp(-(costs - beta) / temperature)
         wsum = jax.lax.psum(jnp.sum(w), axis)
-        contrib = jnp.einsum("s,shc->hc", w, ctrls_shard) / wsum
+        contrib = jnp.einsum("s,shc->hc", w, ctrls_shard,
+                             precision=HIGHEST) / wsum
         new_mean = jax.lax.psum(contrib, axis)
         return new_mean, costs
 
@@ -256,7 +260,7 @@ def sharded_mppi_update(
 def sharded_mean_cost(
     cost_per_scenario: jax.Array, mesh: Mesh, axis: str = "batch"
 ) -> jax.Array:
-    """Global mean of a sharded per-scenario cost via psum over ICI."""
+    """Global mean of a sharded per-scenario cost via psum over the mesh."""
     key = ("mean_cost", mesh, axis, _abstract_key(cost_per_scenario))
     cached = _cache_get(key)
     if cached is not None:

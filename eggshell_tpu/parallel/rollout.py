@@ -1,10 +1,10 @@
-"""Rollouts: scan over the horizon, vmap over scenarios, shard over chips.
+"""Rollouts: scan over the horizon, vmap over scenarios, shard over devices.
 
 The reference steps one scene per Qt timer tick (eggshell_view.cc:540-554);
 here the whole trajectory is one XLA program:
 
   time    -> jax.lax.scan        (sequential, compiled once)
-  batch   -> jax.vmap            (thousands of scenarios per chip)
+  batch   -> jax.vmap            (thousands of scenarios per device)
   devices -> shard_map over Mesh (see parallel/mesh.py)
 """
 
@@ -54,9 +54,9 @@ def rollout_batched(
     num_steps: int,
 ) -> State:
     """Roll a scenario batch forward (one shared SceneSpec): scan over
-    time of the batched step.  This is the per-chip unit the mesh shards.
-    With SolverKind.JACOBI_KERNEL every step's QP batch is one fused
-    Pallas kernel call."""
+    time of the batched step.  This is the per-device unit the mesh
+    shards.  With SolverKind.JACOBI_KERNEL every step's QP batch is one
+    call of the batched sweep (ops/lcp_kernel)."""
     from eggshell_tpu.physics.stepper import step_ode_batched
 
     def body(sts, _):

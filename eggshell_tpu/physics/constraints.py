@@ -24,6 +24,7 @@ from eggshell_tpu.physics.contacts import (
 )
 from eggshell_tpu.physics.scene import SceneSpec, State
 from eggshell_tpu.utils.config import FrictionModel, SimConfig
+from eggshell_tpu.utils.precision import HIGHEST
 
 
 class ConstraintSystem(NamedTuple):
@@ -179,11 +180,11 @@ def build_compact_constraints(
 
 def _blocks_to_rows(bodies, blocks, n):
     """Expand (c, 3, 6) constraint blocks into dense rows (3c, n, 6) via a
-    one-hot body matmul (scatters are slow on TPU; this is an einsum that
-    lands on the MXU).  -1 bodies contribute nothing."""
+    one-hot body matmul at HIGHEST precision (a TF32 product would round
+    J to 10 mantissa bits).  -1 bodies contribute nothing."""
     c = bodies.shape[0]
     onehot = (bodies[:, None] == jnp.arange(n)[None, :]).astype(blocks.dtype)
-    out = jnp.einsum("cn,crk->crnk", onehot, blocks)
+    out = jnp.einsum("cn,crk->crnk", onehot, blocks, precision=HIGHEST)
     return out.reshape(3 * c, n, 6)
 
 

@@ -29,6 +29,7 @@ from eggshell_tpu.ops import collision
 from eggshell_tpu.ops import quaternion as quat
 from eggshell_tpu.physics.scene import SceneSpec, State
 from eggshell_tpu.utils.config import SimConfig
+from eggshell_tpu.utils.precision import HIGHEST
 
 
 class ContactSet(NamedTuple):
@@ -56,8 +57,7 @@ def _candidates(spec: SceneSpec, state: State, cfg: SimConfig,
     With cfg.pair_capacity > 0 the pair list is first AABB-pruned and
     compacted (broadphase) so the SAT narrowphase only runs on plausible
     pairs.  `pair_idx` = (pi, pj, gate) injects an externally selected
-    pair subset matching a precomputed `pair_out` (the batched
-    broadphase + Pallas narrowphase composition)."""
+    pair subset matching a precomputed `pair_out`."""
     n = spec.num_bodies
     R = state.R()
 
@@ -116,8 +116,8 @@ def make_contacts(spec: SceneSpec, state: State, cfg: SimConfig,
                   pair_out=None, pair_idx=None) -> ContactSet:
     """Detect, compact, and dedupe contacts into `cfg.contact_capacity`
     masked lanes.  `pair_out` optionally injects precomputed pairwise
-    narrowphase results (the batched Pallas path); `pair_idx` the
-    matching broadphase-selected pair subset."""
+    narrowphase results; `pair_idx` the matching broadphase-selected
+    pair subset."""
     K = cfg.contact_capacity
     b0, b1, pos, nrm, dep, act = _candidates(spec, state, cfg, pair_out,
                                              pair_idx)
@@ -143,7 +143,8 @@ def make_contacts(spec: SceneSpec, state: State, cfg: SimConfig,
 
     # Stable compaction via a one-hot selection matmul: active candidate
     # number o lands in lane o (original order preserved).  Equivalent to
-    # a stable argsort-take but maps onto the MXU instead of a sort.
+    # a stable argsort-take without a sort.  HIGHEST precision: a TF32
+    # product would round the selected positions to 10 mantissa bits.
     offs = jnp.cumsum(act.astype(jnp.int32)) - act.astype(jnp.int32)
     slot = jnp.arange(K)
     sel = ((offs[None, :] == slot[:, None]) & act[None, :])  # (K, C)
@@ -152,9 +153,9 @@ def make_contacts(spec: SceneSpec, state: State, cfg: SimConfig,
     cs = ContactSet(
         b0=sel_i @ b0 - (1 - sel_i.sum(-1)),  # inactive lanes -> -1
         b1=sel_i @ b1 - (1 - sel_i.sum(-1)),
-        position=self_f @ pos,
-        normal=self_f @ nrm,
-        depth=self_f @ dep,
+        position=jnp.matmul(self_f, pos, precision=HIGHEST),
+        normal=jnp.matmul(self_f, nrm, precision=HIGHEST),
+        depth=jnp.matmul(self_f, dep, precision=HIGHEST),
         active=sel.any(axis=-1),
     )
     return _dedupe(spec, state, cs, cfg)
@@ -294,68 +295,8 @@ def contact_frames(cs: ContactSet) -> jax.Array:
 
 
 def make_contacts_batched(
-    spec: SceneSpec, states: State, cfg: SimConfig, use_kernel=None
+    spec: SceneSpec, states: State, cfg: SimConfig
 ) -> ContactSet:
-    """Batched contact generation over a leading scenario axis.
-
-    On TPU (or with use_kernel=True) the pairwise narrowphase for ALL
-    scenarios runs as one lane-major Pallas kernel call
-    (ops/collision_kernel.py) instead of nested vmaps of the XLA path;
-    compaction/dedupe stay vmapped.  With cfg.pair_capacity set, the
-    AABB broadphase first selects each scene's plausible pairs and the
-    kernel runs only on the (B, pair_capacity) gathered subset — the
-    two compose instead of excluding each other."""
-    P = spec.num_pairs
-    backend_tpu = jax.default_backend() == "tpu"
-    if use_kernel is None:
-        use_kernel = (
-            backend_tpu if cfg.contact_kernel is None else cfg.contact_kernel
-        )
-    use_kernel = use_kernel and P > 0
-
-    if not use_kernel:
-        return jax.vmap(lambda st: make_contacts(spec, st, cfg))(states)
-
-    from eggshell_tpu.ops.collision_kernel import collide_boxes_lanes_diff
-
-    B = states.p.shape[0]
-    R = quat.quat_to_mat(states.q)                     # (B, n, 3, 3)
-
-    pair_idx = None
-    if 0 < cfg.pair_capacity < P:
-        from eggshell_tpu.ops import broadphase
-
-        def select(state_one):
-            return broadphase.select_scene_pairs(spec, state_one, cfg)
-        pi, pj, gate = jax.vmap(select)(states)        # (B, pc) each
-        Pk = cfg.pair_capacity
-        bidx = jnp.arange(B)[:, None]
-        p_i, R_i = states.p[bidx, pi], R[bidx, pi]
-        p_j, R_j = states.p[bidx, pj], R[bidx, pj]
-        he_i, he_j = spec.half_extents[pi], spec.half_extents[pj]
-        pair_idx = (pi, pj, gate)
-    else:
-        Pk = P
-        pi, pj = spec.pair_i, spec.pair_j
-        p_i, R_i = states.p[:, pi], R[:, pi]
-        p_j, R_j = states.p[:, pj], R[:, pj]
-        he_i = jnp.broadcast_to(spec.half_extents[pi], (B, Pk, 3))
-        he_j = jnp.broadcast_to(spec.half_extents[pj], (B, Pk, 3))
-
-    flat = lambda x: x.reshape((B * Pk,) + x.shape[2:])
-    out = collide_boxes_lanes_diff(
-        flat(p_i), flat(R_i), flat(he_i),
-        flat(p_j), flat(R_j), flat(he_j),
-        interpret=not backend_tpu,
-    )
-    pair_out = jax.tree_util.tree_map(
-        lambda x: x.reshape((B, Pk) + x.shape[1:]), out
-    )
-    if pair_idx is None:
-        return jax.vmap(
-            lambda st, po: make_contacts(spec, st, cfg, pair_out=po)
-        )(states, pair_out)
-    return jax.vmap(
-        lambda st, po, px: make_contacts(spec, st, cfg, pair_out=po,
-                                         pair_idx=px)
-    )(states, pair_out, pair_idx)
+    """Batched contact generation over a leading scenario axis: the
+    per-scene path under vmap, which XLA fuses over scenes x pairs."""
+    return jax.vmap(lambda st: make_contacts(spec, st, cfg))(states)

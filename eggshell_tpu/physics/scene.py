@@ -1,6 +1,6 @@
 """Scene specification and simulation state — fixed-shape SoA pytrees.
 
-TPU-native replacement for the reference's object graph (shared_ptr
+Fixed-shape replacement for the reference's object graph (shared_ptr
 ``Body``/``Joint``/``Contact`` lists inside ``Ensemble``,
 eggshell/ensembles.h:73-89): a `SceneSpec` holds everything static
 (masses, inertias, geometry, joint topology, candidate collision pairs)

@@ -1,6 +1,6 @@
 """Constraint-based time steppers — the ODE-style velocity stepper.
 
-TPU-native re-design of the reference's integrators
+Batched re-design of the reference's integrators
 (eggshell/ensembles.cc:390-666):
 
   step_ode             ERP/CFM velocity stepping + mixed LCP + midpoint
@@ -35,6 +35,7 @@ from eggshell_tpu.physics.constraints import ConstraintSystem, build_constraints
 from eggshell_tpu.physics.contacts import ContactSet, make_contacts
 from eggshell_tpu.physics.scene import SceneSpec, State
 from eggshell_tpu.utils.config import SimConfig, SolverKind
+from eggshell_tpu.utils.precision import HIGHEST, full_precision
 
 
 # ---------------------------------------------------------------------------
@@ -58,11 +59,11 @@ def system_matrix(
     CFM policy (ref ensembles.cc:510-521): with `conditional_cfm`, add
     cfg.cfm * I on active rows only when the estimated condition number
     exceeds cfg.good_condition_number; otherwise add cfg.cfm_always
-    unconditionally (TPU fast path).
+    unconditionally (the batched fast path).
     """
     Minv = scn.inv_mass_blocks(spec, state)
-    JM = jnp.einsum("mnk,nkl->mnl", sys.J, Minv)
-    A = jnp.einsum("mnl,onl->mo", JM, sys.J)
+    JM = jnp.einsum("mnk,nkl->mnl", sys.J, Minv, precision=HIGHEST)
+    A = jnp.einsum("mnl,onl->mo", JM, sys.J, precision=HIGHEST)
 
     diag_scale = jnp.max(
         jnp.where(sys.row_active, jnp.diagonal(A), 0.0)
@@ -187,7 +188,7 @@ def _step_matrix_free(spec, state, cfg, ext_force, cs=None):
     (ref sparse_iterations_utils.cc:624-695 CalculateSparseJMJtX, the
     reference's answer to exactly this scaling problem).  `cs` injects a
     precomputed contact set (the batched path detects contacts for all
-    scenes with the lane-major Pallas narrowphase first)."""
+    scenes first)."""
     from eggshell_tpu.ops import lcp_matrix_free as mf
     from eggshell_tpu.physics.constraints import build_compact_constraints
 
@@ -223,6 +224,7 @@ def _step_matrix_free(spec, state, cfg, ext_force, cs=None):
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
+@full_precision
 def step_ode(
     spec: SceneSpec,
     state: State,
@@ -246,415 +248,15 @@ def step_ode(
     return _post_solve(state, cfg, sys, lam, u, Minv, F), cs
 
 
-def _fused_step_packed(spec, states, cfg, css, ext_forces,
-                       return_lam: bool = False):
-    """All-kernel batched step: narrowphase contacts (already in `css`)
-    -> J-assembly kernel -> A-formation kernel -> packed momentum-Jacobi
-    LCP -> integrate kernel.  The compact J blocks, system matrix, and
-    impulses all stay in the packed (8x128 scenarios) tile layout — no
-    XLA einsums or relayouts between kernels (SURVEY §2.8 item 3: the
-    whole contact solve is the kernel fast path).
-
-    Ball joints ride the same pipeline as always-active equality lanes
-    prepended before the contact lanes (matching the XLA row order,
-    physics/constraints.build_constraints): slot anchors a0/a1, identity
-    frame, unclamped bounds (ref joints.cc:13-35)."""
-    from eggshell_tpu.ops.amat_kernel import contact_system_matrix_packed
-    from eggshell_tpu.ops.integrate_kernel import integrate_step
-    from eggshell_tpu.ops.jassembly_kernel import (
-        _pack,
-        contact_jacobian_blocks,
-    )
-    from eggshell_tpu.ops.pgs_kernel import solve_lcp_jacobi_packed
-    from eggshell_tpu.ops.prep_kernel import prep_packed
-
-    B = states.p.shape[0]
-    n = spec.num_bodies
-    K = css.b0.shape[1]
-    Jn = spec.num_joints
-    dtype = states.p.dtype
-    interpret = jax.default_backend() != "tpu"
-
-    from eggshell_tpu.physics.contacts import effective_depth
-
-    css = css._replace(depth=effective_depth(css.depth, cfg))
-
-    # Body prep (R, world inertia, forces, uhat) as one packed kernel —
-    # the vmapped XLA equivalent ran at 3/128 lane occupancy.
-    ext_b = None
-    if ext_forces is not None:
-        ext_b = jnp.broadcast_to(ext_forces, (B, n, 6)) \
-            if ext_forces.ndim == 2 else ext_forces
-    uhat_p, invig_p, f_p = prep_packed(
-        states.q, states.v, states.w, spec.inv_mass,
-        spec.inertia_body, spec.inv_inertia_body,
-        dt=float(cfg.dt), gravity=tuple(cfg.gravity),
-        interpret=interpret, ext_forces=ext_b,
-    )
-
-    if Jn > 0:
-        a0, a1 = jax.vmap(lambda st: _joint_anchors(spec, st))(states)
-        jb0 = jnp.broadcast_to(spec.joint_b0, (B, Jn)).astype(jnp.int32)
-        jb1 = jnp.broadcast_to(spec.joint_b1, (B, Jn)).astype(jnp.int32)
-        zhat = jnp.broadcast_to(
-            jnp.asarray([0.0, 0.0, 1.0], dtype), (B, Jn, 3)
-        )
-        b0 = jnp.concatenate([jb0, css.b0], axis=1)
-        b1 = jnp.concatenate([jb1, css.b1], axis=1)
-        pos = jnp.concatenate([a0, css.position], axis=1)
-        pos1 = jnp.concatenate([a1, css.position], axis=1)
-        nrm = jnp.concatenate([zhat, css.normal], axis=1)
-        dep = jnp.concatenate([jnp.zeros((B, Jn), dtype), css.depth], axis=1)
-        act = jnp.concatenate(
-            [jnp.ones((B, Jn), bool), css.active], axis=1
-        )
-        eq = jnp.concatenate(
-            [jnp.ones((B, Jn), dtype), jnp.zeros((B, K), dtype)], axis=1
-        )
-        Kx = Jn + K
-    else:
-        b0, b1, pos, pos1 = css.b0, css.b1, css.position, css.position
-        nrm, dep, act = css.normal, css.depth, css.active
-        eq = None
-        Kx = K
-
-    _, _, packed = contact_jacobian_blocks(
-        b0, b1, pos, nrm, dep, act,
-        states.p, None, erp_dt2=float(cfg.erp / cfg.dt / cfg.dt),
-        interpret=interpret, also_packed=True,
-        position1=pos1, is_eq=eq, uhat_packed=uhat_p,
-    )
-
-    invm = jnp.broadcast_to(spec.inv_mass.astype(dtype), (B, n))
-    invm_packed, _, _, _ = _pack(invm, n)
-
-    A_packed, diag_packed = contact_system_matrix_packed(
-        packed["jc"], packed["b0"], packed["b1"], packed["act"],
-        invm_packed, invig_p, K=Kx, n=n,
-        cfm=float(cfg.cfm_always), interpret=interpret,
-    )
-    lam_packed = solve_lcp_jacobi_packed(
-        A_packed, packed["rhs"], packed["act"], K=Kx,
-        mu=float(cfg.friction_bound), iters=cfg.solver_iters,
-        omega=float(cfg.jacobi_omega), beta=float(cfg.jacobi_beta),
-        interpret=interpret, eq_packed=packed["eq"],
-        block=bool(cfg.jacobi_block), diag_packed=diag_packed,
-        pyramid_mu=_pyramid_mu(cfg),
-    )
-    pn, qn, vn, wn = integrate_step(
-        None, None, b0, b1, states.p, states.q, states.v,
-        states.w, None, None, dt=float(cfg.dt), interpret=interpret,
-        jc_packed=packed["jc"], lam_packed=lam_packed,
-        invig_packed=invig_p, f_packed=f_p,
-        inv_mass=spec.inv_mass.astype(dtype),
-    )
-    out = State(p=pn, v=vn, q=qn, w=wn)
-    if return_lam:
-        return out, _unpack_lam(lam_packed, B, 3 * Kx)
-    return out
-
-
-def _unpack_lam(lam_packed, B, m):
-    """(nt, mp, 8, 128) packed impulses -> (B, m) row-major lambda."""
-    nt, mp = lam_packed.shape[0], lam_packed.shape[1]
-    from eggshell_tpu.ops.jassembly_kernel import TILE
-
-    flat = lam_packed.transpose(0, 2, 3, 1).reshape(nt * TILE, mp)
-    return flat[:B, :m]
-
-
-def _pyramid_mu(cfg) -> float:
-    """Static Coulomb-pyramid coefficient for the packed LCP kernel
-    (0.0 = box friction; the reference declares COULOMB_PYRAMID but
-    leaves it unimplemented, eggshell/contact.cc:150-152)."""
-    from eggshell_tpu.utils.config import FrictionModel
-
-    return (
-        float(cfg.friction_mu)
-        if cfg.friction_model == FrictionModel.COULOMB_PYRAMID else 0.0
-    )
-
-
-def _joint_anchors(spec, state):
-    """World anchor points of the ball joints: a0 on body 0, a1 on body
-    1 (the fixed world anchor joint_c1 when b1 = -1).  (Jn, 3) each."""
-    R = quat.quat_to_mat(state.q)
-    a0 = state.p[spec.joint_b0] + jnp.einsum(
-        "jik,jk->ji", R[spec.joint_b0], spec.joint_c0
-    )
-    anchored = spec.joint_b1 < 0
-    jb1 = jnp.where(anchored, 0, spec.joint_b1)
-    a1 = jnp.where(
-        anchored[:, None],
-        spec.joint_c1,
-        state.p[jb1] + jnp.einsum("jik,jk->ji", R[jb1], spec.joint_c1),
-    )
-    return a0, a1
-
-
-def _all_kernel_eligible(spec, states, cfg) -> bool:
-    """The fully kernel-chained step covers TILE-aligned batch sizes
-    with the kernel narrowphase enabled.  Jointed scenes ride it too:
-    joint lanes are prepended to the compact kernel's contact lanes in
-    the packed layout, with the joint-contact dedupe applied packed
-    (see `_fused_step_all_kernel`)."""
-    from eggshell_tpu.ops.compact_kernel import TILE
-
-    use_kernel = cfg.contact_kernel
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    return use_kernel and states.p.shape[0] % TILE == 0
-
-
-def _fused_step_all_kernel(spec, states, cfg, ext_forces,
-                           return_lam: bool = False):
-    """Fully kernel-chained batched step: narrowphase -> compaction +
-    dedupe (ops/compact_kernel) -> J-assembly -> A-formation -> packed
-    LCP -> integrate, with every intermediate staying in the packed
-    scene-on-lanes tile layout — no XLA compaction matmuls, cumsums, or
-    pack/unpack relayouts anywhere in the chain.  Round-4 on-chip
-    profiling showed that XLA glue costing more than all five kernels
-    combined (~1 ms of the 1.7 ms step at B=4096)."""
-    import math
-
-    from eggshell_tpu.ops import compact_kernel as ck
-    from eggshell_tpu.ops.amat_kernel import contact_system_matrix_packed
-    from eggshell_tpu.ops.collision_kernel import collide_boxes_lanes_packed
-    from eggshell_tpu.ops.integrate_kernel import integrate_step
-    from eggshell_tpu.ops.jassembly_kernel import (
-        _pack,
-        contact_jacobian_blocks_from_packed,
-    )
-    from eggshell_tpu.ops.pgs_kernel import solve_lcp_jacobi_packed
-    from eggshell_tpu.ops.prep_kernel import prep_packed
-
-    B = states.p.shape[0]
-    n = spec.num_bodies
-    K = cfg.contact_capacity
-    dtype = states.p.dtype
-    interpret = jax.default_backend() != "tpu"
-    nt = B // ck.TILE
-
-    # body prep (R, world inertia, forces, uhat) — one packed kernel
-    ext_b = None
-    if ext_forces is not None:
-        ext_b = jnp.broadcast_to(ext_forces, (B, n, 6)) \
-            if ext_forces.ndim == 2 else ext_forces
-    uhat_p, invig_p, f_p = prep_packed(
-        states.q, states.v, states.w, spec.inv_mass,
-        spec.inertia_body, spec.inv_inertia_body,
-        dt=float(cfg.dt), gravity=tuple(cfg.gravity),
-        interpret=interpret, ext_forces=ext_b,
-    )
-
-    # scene-layout state packs (the only layout changes in the chain;
-    # broadcast spec constants hoist out of any scan)
-    pt, _, _, _ = _pack(states.p, 3 * n)
-    qt, _, _, _ = _pack(states.q, 4 * n)
-    hs_b = jnp.broadcast_to(
-        spec.half_extents.astype(dtype).reshape(1, 3 * n), (B, 3 * n)
-    )
-    hst, _, _, _ = _pack(hs_b, 3 * n)
-    gen_b = jnp.broadcast_to(
-        spec.ground_enabled.astype(dtype).reshape(1, n), (B, n)
-    )
-    gent, _, _, _ = _pack(gen_b, n)
-
-    # pair selection (static all-pairs, or per-scene broadphase subset)
-    P = spec.num_pairs
-    if P == 0:
-        # ground-only scenes (box_drop): no narrowphase at all
-        pp_pos = pp_nrm = pp_dep = pp_act = pb0 = pb1 = None
-        Pk = 0
-    R = quat.quat_to_mat(states.q) if P > 0 else None
-    if P == 0:
-        pass
-    elif 0 < cfg.pair_capacity < P:
-        from eggshell_tpu.ops import broadphase
-
-        def select(state_one):
-            return broadphase.select_scene_pairs(spec, state_one, cfg)
-
-        pi, pj, gate = jax.vmap(select)(states)        # (B, pc)
-        Pk = cfg.pair_capacity
-        gate_f = gate.astype(dtype)
-        bidx = jnp.arange(B)[:, None]
-        p_i, R_i = states.p[bidx, pi], R[bidx, pi]
-        p_j, R_j = states.p[bidx, pj], R[bidx, pj]
-        he_i, he_j = spec.half_extents[pi], spec.half_extents[pj]
-    else:
-        Pk = P
-        pi = jnp.broadcast_to(spec.pair_i, (B, P))
-        pj = jnp.broadcast_to(spec.pair_j, (B, P))
-        gate_f = jnp.ones((B, P), dtype)
-        p_i, R_i = states.p[:, spec.pair_i], R[:, spec.pair_i]
-        p_j, R_j = states.p[:, spec.pair_j], R[:, spec.pair_j]
-        he_i = jnp.broadcast_to(spec.half_extents[spec.pair_i], (B, Pk, 3))
-        he_j = jnp.broadcast_to(spec.half_extents[spec.pair_j], (B, Pk, 3))
-
-    if P > 0:
-        ngroups = -(-Pk // ck.GROUP)
-        Pkp = ngroups * ck.GROUP
-
-        def flat_pairs(x):
-            """(B, Pk, ...) -> scene-tile-major flat (nt*Pkp*TILE, ...):
-            entry ((t*Pkp + pk)*TILE + s) = scene (t*TILE + s), pair pk
-            — so the narrowphase pack puts pair pk of scene-tile t at
-            row t*Pkp + pk with scenes on (sublane, lane)."""
-            trail = x.shape[2:]
-            c = 1
-            for d in trail:
-                c *= d
-            xp = x.reshape(B, Pk, c)
-            if Pkp != Pk:
-                xp = jnp.pad(xp, ((0, 0), (0, Pkp - Pk), (0, 0)))
-            out = xp.reshape(nt, ck.TILE, Pkp, c).transpose(0, 2, 1, 3)
-            return out.reshape((nt * Pkp * ck.TILE,) + trail)
-
-        pp_pos, pp_nrm, pp_dep, pp_act = collide_boxes_lanes_packed(
-            flat_pairs(p_i), flat_pairs(R_i), flat_pairs(he_i),
-            flat_pairs(p_j), flat_pairs(R_j), flat_pairs(he_j),
-            interpret=interpret,
-        )
-        gate_p = ck.pack_pairs(gate_f[:, :, None], nt, Pkp)
-        pp_act = pp_act * gate_p                  # same layout: fused
-        pb0 = ck.pack_pairs(pi.astype(dtype)[:, :, None], nt, Pkp)
-        pb1 = ck.pack_pairs(pj.astype(dtype)[:, :, None], nt, Pkp)
-
-    cap = None
-    if not math.isinf(cfg.max_correcting_vel):
-        cap = float(
-            cfg.max_correcting_vel * cfg.dt / max(cfg.erp, 1e-12)
-        )
-    b0t, b1t, post, nrmt, dept, actt = ck.compact_contacts_packed(
-        pt, qt, hst, gent, pp_pos, pp_nrm, pp_dep, pp_act, pb0, pb1,
-        K=K, n=n, Pk=Pk, nt=nt,
-        eps2=float(cfg.min_constraint_distance**2),
-        depth_cap=cap, interpret=interpret,
-    )
-    eqt = jnp.zeros_like(actt)
-    pos1t = post
-    Jn = spec.num_joints
-    Kx = K
-    if Jn > 0:
-        # Joints ride the same packed pipeline as always-active equality
-        # lanes PREPENDED to the contact lanes (matching the XLA twin's
-        # row order, ref joints.cc:13-35).  Anchor math is O(B*Jn) XLA;
-        # everything stays in the scene-on-lanes layout.
-        a0, a1 = jax.vmap(lambda st: _joint_anchors(spec, st))(states)
-        jb0 = jnp.broadcast_to(
-            spec.joint_b0.astype(dtype), (B, Jn)
-        )
-        jb1 = jnp.broadcast_to(spec.joint_b1.astype(dtype), (B, Jn))
-        jb0t, _, _, _ = _pack(jb0, Jn)                 # (nt, Jn, 8, 128)
-        jb1t, _, _, _ = _pack(jb1, Jn)
-        ja0t, _, _, _ = _pack(a0.astype(dtype), 3 * Jn)
-        ja1t, _, _, _ = _pack(a1.astype(dtype), 3 * Jn)
-        anchored = spec.joint_b1 < 0
-        jpos = jnp.where(anchored[None, :, None], a0, 0.5 * (a0 + a1))
-        jpt, _, _, _ = _pack(jpos.astype(dtype), 3 * Jn)
-
-        # Joint-contact dedupe in the packed layout (ref
-        # ensembles.cc:291-300 via contacts._dedupe drop_jc): a contact
-        # between the same body pair closer than eps to the joint point
-        # is dropped (active cleared, ids kept — XLA convention).
-        lo_c = jnp.minimum(b0t, b1t)                   # (nt, K, 8, 128)
-        hi_c = jnp.maximum(b0t, b1t)
-        pair_ok = lo_c >= 0
-        jlo = jnp.minimum(jb0t, jb1t)                  # (nt, Jn, 8, 128)
-        jhi = jnp.maximum(jb0t, jb1t)
-        j_ok = jlo >= 0
-        eps2 = float(cfg.min_constraint_distance**2)
-        cx, cy, cz = post[:, 0::3], post[:, 1::3], post[:, 2::3]
-        jx, jy, jz = jpt[:, 0::3], jpt[:, 1::3], jpt[:, 2::3]
-        d2 = (
-            (cx[:, :, None] - jx[:, None, :]) ** 2
-            + (cy[:, :, None] - jy[:, None, :]) ** 2
-            + (cz[:, :, None] - jz[:, None, :]) ** 2
-        )                                              # (nt, K, Jn, 8, 128)
-        same = (
-            (lo_c[:, :, None] == jlo[:, None, :])
-            & (hi_c[:, :, None] == jhi[:, None, :])
-            & j_ok[:, None, :]
-            & pair_ok[:, :, None]
-        )
-        drop = jnp.any(same & (d2 < eps2), axis=2).astype(dtype)
-        actt = actt * (1.0 - drop)
-
-        zhat = jnp.broadcast_to(
-            jnp.asarray([0.0, 0.0, 1.0], dtype), (B, Jn, 3)
-        )
-        jnrm, _, _, _ = _pack(zhat, 3 * Jn)
-        ones_j = jnp.ones_like(jb0t)
-        b0t = jnp.concatenate([jb0t, b0t], axis=1)
-        b1t = jnp.concatenate([jb1t, b1t], axis=1)
-        pos1t = jnp.concatenate([ja1t, post], axis=1)
-        post = jnp.concatenate([ja0t, post], axis=1)
-        nrmt = jnp.concatenate([jnrm, nrmt], axis=1)
-        dept = jnp.concatenate([jnp.zeros_like(jb0t), dept], axis=1)
-        actt = jnp.concatenate([ones_j, actt], axis=1)
-        eqt = jnp.concatenate([ones_j, eqt], axis=1)
-        Kx = Jn + K
-
-    packed = contact_jacobian_blocks_from_packed(
-        b0t, b1t, post, pos1t, nrmt, dept, actt, eqt, pt, uhat_p,
-        K=Kx, n=n, nt=nt, erp_dt2=float(cfg.erp / cfg.dt / cfg.dt),
-        interpret=interpret,
-    )
-
-    invm = jnp.broadcast_to(spec.inv_mass.astype(dtype), (B, n))
-    invm_packed, _, _, _ = _pack(invm, n)
-    A_packed, diag_packed = contact_system_matrix_packed(
-        packed["jc"], packed["b0"], packed["b1"], packed["act"],
-        invm_packed, invig_p, K=Kx, n=n,
-        cfm=float(cfg.cfm_always), interpret=interpret,
-    )
-    lam_packed = solve_lcp_jacobi_packed(
-        A_packed, packed["rhs"], packed["act"], K=Kx,
-        mu=float(cfg.friction_bound), iters=cfg.solver_iters,
-        omega=float(cfg.jacobi_omega), beta=float(cfg.jacobi_beta),
-        interpret=interpret, eq_packed=packed["eq"],
-        block=bool(cfg.jacobi_block), diag_packed=diag_packed,
-        pyramid_mu=_pyramid_mu(cfg),
-    )
-    pn, qn, vn, wn = integrate_step(
-        None, None, None, None, states.p, states.q, states.v,
-        states.w, None, None, dt=float(cfg.dt), interpret=interpret,
-        jc_packed=packed["jc"], lam_packed=lam_packed,
-        invig_packed=invig_p, f_packed=f_p,
-        inv_mass=spec.inv_mass.astype(dtype),
-        b0_packed=b0t, b1_packed=b1t, K=Kx,
-    )
-    out = State(p=pn, v=vn, q=qn, w=wn)
-    if return_lam:
-        return out, _unpack_lam(lam_packed, B, 3 * Kx)
-    return out
-
-
-def _step_xla_twin(spec, states, cfg, ext_forces, lam_saved=None):
-    """Differentiable XLA twin of `_fused_step_packed`: identical math
-    (joints as equality lanes + box-bound contacts, cfm_always, the same
-    heavy-ball/block Jacobi sweep rule) but built from vmapped XLA ops
-    with an implicit-function-theorem LCP (ops.lcp.solve_lcp_implicit) —
-    the backward pass of the kernel hot path.  Gradients through the
-    solve cost ONE adjoint linear solve instead of reverse-unrolling
-    cfg.solver_iters sweeps (the reference's my_jet.h threads derivatives
-    through its production FEM pipeline; this is the dynamics analog).
-
-    `lam_saved` (B, m): impulses already computed by the Pallas forward
-    (lane-for-lane parity with this twin's row order) — the LCP sweeps
-    are skipped entirely and the saved solution is adopted with the same
-    IFT adjoint (ops.lcp.adopt_lcp_solution)."""
+def _batched_system(spec, states, cfg, ext_forces):
+    """Contacts, constraint rows, A = J M^-1 J^T and rhs for every scene
+    of a batch (vmapped XLA).  `ext_forces` is (n, 6), shared by all
+    scenes, or (B, n, 6)."""
     from eggshell_tpu.physics.contacts import make_contacts_batched
 
-    # default (None) narrowphase: the Pallas kernel on TPU with its
-    # differentiable custom VJP (ops/collision_kernel
-    # .collide_boxes_lanes_diff) — the twin's forward recompute inside
-    # the fused step's backward pass was paying the slow XLA
-    # narrowphase for no gradient benefit (kernel-vs-XLA narrowphase
-    # gradients are pinned equal by tests/test_diff_kernel.py).
-    css = make_contacts_batched(spec, states, cfg)
-    in_axes = (0, 0, 0 if ext_forces is not None else None)
+    with jax.named_scope("contacts"):
+        css = make_contacts_batched(spec, states, cfg)
+    per_scene = ext_forces is not None and ext_forces.ndim == 3
 
     def pre(state, cs_one, ext):
         sys = build_constraints(spec, state, cs_one, cfg)
@@ -670,75 +272,95 @@ def _step_xla_twin(spec, states, cfg, ext_forces, lam_saved=None):
         A = system_matrix(spec, state, sys, cfg)
         return sys, A, rhs, u, Minv, F
 
-    sys, A, rhs, u, Minv, F = jax.vmap(pre, in_axes=in_axes)(
-        states, css, ext_forces
-    )
-    from eggshell_tpu.utils.config import FrictionModel as _FM2
-
-    pyramid = cfg.friction_model == _FM2.COULOMB_PYRAMID
-    if lam_saved is not None:
-        lo_t, hi_t = sys.lo, sys.hi
-        if pyramid:
-            # effective bounds at the saved solution (+-mu lambda_n),
-            # so the IFT active-set classification sees the same caps
-            # the coupled sweeps enforced
-            lo_t, hi_t = jax.vmap(
-                lambda x, l, h, c: lcp._bounds(
-                    x, l, h, c, float(cfg.friction_mu)
-                )
-            )(lam_saved, sys.lo, sys.hi, sys.couple)
-        lam = jax.vmap(lcp.adopt_lcp_solution)(
-            A, rhs, sys.is_eq, lo_t, hi_t, lam_saved
+    with jax.named_scope("assembly"):
+        return jax.vmap(pre, in_axes=(0, 0, 0 if per_scene else None))(
+            states, css, ext_forces
         )
-    else:
-        lam = jax.vmap(
-            lambda a, r, e, l, h: lcp.solve_lcp_implicit(
-                a, r, e, l, h, cfg.solver_iters, "jacobi",
-                cfg.jacobi_omega, 1e-8, cfg.jacobi_beta,
-                bool(cfg.jacobi_block),
-            )
-        )(A, rhs, sys.is_eq, sys.lo, sys.hi)
-    return jax.vmap(
-        lambda st, s, l, uu, mi, ff: _post_solve(st, cfg, s, l, uu, mi, ff)
-    )(states, sys, lam, u, Minv, F)
+
+
+def _batched_post(states, cfg, sys, lam, u, Minv, F):
+    with jax.named_scope("integrate"):
+        return jax.vmap(
+            lambda st, s, l, uu, mi, ff: _post_solve(st, cfg, s, l, uu, mi,
+                                                     ff)
+        )(states, sys, lam, u, Minv, F)
+
+
+def _coulomb(cfg):
+    from eggshell_tpu.utils.config import FrictionModel
+
+    return cfg.friction_model == FrictionModel.COULOMB_PYRAMID
+
+
+def _jacobi_kernel_forward(spec, states, cfg, ext_forces):
+    """JACOBI_KERNEL forward: the batch's LCPs go to
+    `ops.lcp_kernel.solve_jacobi_batched` (the fused sweep kernel or the
+    XLA sweep, by shape and platform).  Returns (new states, lambda
+    (B, m) in `build_constraints` row order)."""
+    from eggshell_tpu.ops import lcp_kernel
+
+    sys, A, rhs, u, Minv, F = _batched_system(spec, states, cfg, ext_forces)
+    coulomb = _coulomb(cfg)
+    with jax.named_scope("lcp"):
+        lam = lcp_kernel.solve_jacobi_batched(
+            A, rhs, sys.is_eq, sys.lo, sys.hi,
+            iters=cfg.solver_iters, omega=cfg.jacobi_omega,
+            beta=cfg.jacobi_beta, block=bool(cfg.jacobi_block),
+            couple=sys.couple if coulomb else None,
+            mu=float(cfg.friction_mu) if coulomb else 0.0,
+        )
+    return _batched_post(states, cfg, sys, lam, u, Minv, F), lam
+
+
+def _step_xla_twin(spec, states, cfg, ext_forces, lam_saved):
+    """Differentiable twin of `_jacobi_kernel_forward`: the same vmapped
+    contacts and assembly, with the forward's impulses `lam_saved`
+    adopted through the implicit-function-theorem LCP adjoint
+    (ops.lcp.adopt_lcp_solution) — gradients through the solve cost ONE
+    adjoint linear solve per scene instead of reverse-unrolling
+    cfg.solver_iters sweeps (the reference's my_jet.h threads
+    derivatives through its production FEM pipeline; this is the
+    dynamics analog)."""
+    sys, A, rhs, u, Minv, F = _batched_system(spec, states, cfg, ext_forces)
+    lo_t, hi_t = sys.lo, sys.hi
+    if _coulomb(cfg):
+        # effective bounds at the saved solution (+-mu lambda_n), so the
+        # IFT active-set classification sees the same caps the coupled
+        # sweeps enforced
+        lo_t, hi_t = jax.vmap(
+            lambda x, l, h, c: lcp._bounds(x, l, h, c, float(cfg.friction_mu))
+        )(lam_saved, sys.lo, sys.hi, sys.couple)
+    lam = jax.vmap(lcp.adopt_lcp_solution)(
+        A, rhs, sys.is_eq, lo_t, hi_t, lam_saved
+    )
+    return _batched_post(states, cfg, sys, lam, u, Minv, F)
 
 
 @functools.lru_cache(maxsize=None)
-def _fused_step_diff(cfg: SimConfig):
-    """custom_vjp wrapper making the fused Pallas step differentiable:
-    forward = the five-kernel packed pipeline (`_fused_step_packed`, the
-    bench hot path); backward = jax.vjp of the XLA twin with the IFT LCP
-    adjoint (`_step_xla_twin`).  The twin recomputes the forward pieces
-    it needs (standard rematerialisation), so nothing is saved but the
-    primal inputs.  Cached per SimConfig (hashable, static)."""
+def _jacobi_kernel_step(cfg: SimConfig):
+    """custom_vjp step for SolverKind.JACOBI_KERNEL: forward =
+    `_jacobi_kernel_forward`; backward = jax.vjp of `_step_xla_twin`,
+    which recomputes contacts and assembly (rematerialisation) and
+    adopts the forward's saved impulses.  Cached per SimConfig.
 
-    def _primal(spec, states, ext_forces, return_lam=False):
-        from eggshell_tpu.physics.contacts import make_contacts_batched
-
-        if _all_kernel_eligible(spec, states, cfg):
-            return _fused_step_all_kernel(spec, states, cfg, ext_forces,
-                                          return_lam=return_lam)
-        css = make_contacts_batched(spec, states, cfg)
-        return _fused_step_packed(spec, states, cfg, css, ext_forces,
-                                  return_lam=return_lam)
+    JAX may trace `fwd` and `bwd` after the enclosing step's body has
+    returned, so each carries its own `full_precision` context."""
 
     @jax.custom_vjp
+    @full_precision
     def step(spec, states, ext_forces):
-        return _primal(spec, states, ext_forces)
+        return _jacobi_kernel_forward(spec, states, cfg, ext_forces)[0]
 
+    @full_precision
     def fwd(spec, states, ext_forces):
-        # Save the kernel forward's own impulses: the backward twin
-        # adopts them (IFT adjoint) instead of re-running the LCP
-        # sweeps inside the VJP recompute — the recompute is contacts +
-        # assembly + integrate only (round-4 VERDICT weak #1).
-        out, lam = _primal(spec, states, ext_forces, return_lam=True)
+        out, lam = _jacobi_kernel_forward(spec, states, cfg, ext_forces)
         return out, (spec, states, ext_forces, lam)
 
+    @full_precision
     def bwd(res, bar_out):
         spec, states, ext_forces, lam = res
         _, vjp = jax.vjp(
-            lambda sp, st, ex: _step_xla_twin(sp, st, cfg, ex,
-                                              lam_saved=lam),
+            lambda sp, st, ex: _step_xla_twin(sp, st, cfg, ex, lam),
             spec, states, ext_forces,
         )
         return vjp(bar_out)
@@ -748,36 +370,29 @@ def _fused_step_diff(cfg: SimConfig):
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
+@full_precision
 def step_ode_batched(
     spec: SceneSpec,
     states: State,
     cfg: SimConfig,
     ext_forces: Optional[jax.Array] = None,
 ) -> State:
-    """Batched step over a leading scenario axis.  With
-    SolverKind.JACOBI_KERNEL the per-scenario QPs are solved by ONE fused
-    Pallas kernel call (batch mapped onto TPU lanes, all sweeps in VMEM)
-    instead of a vmapped per-scenario solve — the hot path of the
-    rollouts/s north star.  The fused path is differentiable: jax.grad
-    flows through a custom VJP whose backward is the XLA twin with an
-    implicit-function-theorem LCP adjoint (see `_fused_step_diff`)."""
-    from eggshell_tpu.physics.contacts import make_contacts_batched
-    from eggshell_tpu.utils.config import FrictionModel as _FM
+    """Batched step over a leading scenario axis.  `ext_forces` is (n, 6)
+    for all scenes or (B, n, 6).
 
-    use_fused_pre = (
-        cfg.solver == SolverKind.JACOBI_KERNEL
-        and cfg.friction_model in (_FM.BOX, _FM.COULOMB_PYRAMID)
-        and not cfg.conditional_cfm
-    )
-    if use_fused_pre:
-        return _fused_step_diff(cfg)(spec, states, ext_forces)
+    With SolverKind.JACOBI_KERNEL the batch's LCPs are solved by
+    `ops.lcp_kernel` (one fused sweep kernel on the GPU) and jax.grad
+    flows through a custom VJP whose backward is the XLA twin with an
+    implicit-function-theorem LCP adjoint (see `_jacobi_kernel_step`)."""
+    if cfg.solver == SolverKind.JACOBI_KERNEL:
+        return _jacobi_kernel_step(cfg)(spec, states, ext_forces)
 
     if cfg.solver == SolverKind.MATRIX_FREE:
-        # Batched large-scene tier: contacts for ALL scenes via the
-        # lane-major Pallas narrowphase (one kernel call), then vmap the
-        # O(K)-memory compact-block step (ref
-        # sparse_iterations_utils.cc:624-695) — a batch of piles never
-        # forms any (3K)^2 matrix.
+        # Batched large-scene tier: vmap the O(K)-memory compact-block
+        # step (ref sparse_iterations_utils.cc:624-695) — a batch of
+        # piles never forms any (3K)^2 matrix.
+        from eggshell_tpu.physics.contacts import make_contacts_batched
+
         css = make_contacts_batched(spec, states, cfg)
         if ext_forces is None:
             return jax.vmap(
@@ -793,56 +408,16 @@ def step_ode_batched(
                                                  cs=cs)[0]
         )(states, css, ext_b)
 
-    css = make_contacts_batched(spec, states, cfg)
-
-    in_axes = (0, 0, 0 if ext_forces is not None else None)
-
-    def pre(state, cs_one, ext):
-        sys = build_constraints(spec, state, cs_one, cfg)
-        u = scn.pack_velocity(state)
-        Minv = scn.inv_mass_blocks(spec, state)
-        F = scn.external_forces(spec, state, cfg.gravity)
-        if ext is not None:
-            F = F + ext
-        MinvF = jnp.einsum("nij,nj->ni", Minv, F)
-        rhs = -cfg.erp / cfg.dt / cfg.dt * sys.err - jnp.einsum(
-            "mnk,nk->m", sys.J, u / cfg.dt + MinvF
-        )
-        A = system_matrix(spec, state, sys, cfg)
-        return sys, A, rhs, u, Minv, F
-
-    sys, A, rhs, u, Minv, F = jax.vmap(pre, in_axes=in_axes)(
-        states, css, ext_forces
-    )
-
-    from eggshell_tpu.utils.config import FrictionModel
-
-    use_kernel_solver = cfg.solver == SolverKind.JACOBI_KERNEL and (
-        cfg.friction_model != FrictionModel.COULOMB_PYRAMID
-    )  # the fused kernel does not implement normal-coupled bounds yet
-    if use_kernel_solver:
-        from eggshell_tpu.ops.pgs_kernel import solve_lcp_jacobi_pallas
-
-        interpret = jax.default_backend() != "tpu"
-        lam = solve_lcp_jacobi_pallas(
-            A, rhs, sys.is_eq, sys.lo, sys.hi,
-            iters=cfg.solver_iters, omega=cfg.jacobi_omega,
-            interpret=interpret, beta=cfg.jacobi_beta,
-        )
-    else:
-        solve_cfg = cfg
-        if cfg.solver == SolverKind.JACOBI_KERNEL:
-            solve_cfg = cfg.replace(solver=SolverKind.JACOBI)
-        lam = jax.vmap(lambda a, r, s: _solve_lambda(a, r, s, solve_cfg))(
+    sys, A, rhs, u, Minv, F = _batched_system(spec, states, cfg, ext_forces)
+    with jax.named_scope("lcp"):
+        lam = jax.vmap(lambda a, r, s: _solve_lambda(a, r, s, cfg))(
             A, rhs, sys
         )
-
-    return jax.vmap(
-        lambda st, s, l, uu, mi, ff: _post_solve(st, cfg, s, l, uu, mi, ff)
-    )(states, sys, lam, u, Minv, F)
+    return _batched_post(states, cfg, sys, lam, u, Minv, F)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "fixed_point_iters"))
+@full_precision
 def step_implicit_midpoint(
     spec: SceneSpec,
     state: State,
@@ -904,6 +479,7 @@ def step_implicit_midpoint(
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
+@full_precision
 def step_explicit_euler(spec: SceneSpec, state: State, cfg: SimConfig) -> State:
     """Equality-only explicit Euler (ref :540-561): joints only; contacts
     are not supported by this integrator (ref :397-400 CHECKs)."""
@@ -1008,6 +584,7 @@ def _advance_positions(state: State, vc: jax.Array, dt) -> State:
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "max_steps"))
+@full_precision
 def init_stabilize(
     spec: SceneSpec, state: State, cfg: SimConfig, max_steps: int = 100
 ) -> State:
@@ -1037,6 +614,7 @@ def init_stabilize(
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "max_steps"))
+@full_precision
 def post_stabilize(
     spec: SceneSpec, state: State, cfg: SimConfig, max_steps: int = 500
 ) -> State:
@@ -1074,6 +652,7 @@ def post_stabilize(
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
+@full_precision
 def step_diagnostics(
     spec: SceneSpec, state: State, cfg: SimConfig,
     ext_force: Optional[jax.Array] = None,

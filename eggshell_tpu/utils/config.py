@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
-from typing import Optional, Tuple
+from typing import Tuple
 
 
 class FrictionModel(enum.IntEnum):
@@ -44,7 +44,8 @@ class SolverKind(enum.IntEnum):
     JACOBI = 1   # projected Jacobi (fully parallel sweep)
     SOR = 2      # backward projected SOR, omega=1.5 (ref sparse_iterations.cc:15)
     DIRECT = 3   # Murty pivot + Schur mixed solver (ref lcp.cc:157-336)
-    JACOBI_KERNEL = 4  # fused Pallas kernel (batched path only)
+    JACOBI_KERNEL = 4  # batched Jacobi: fused sweep kernel on the GPU
+    #                    (ops/lcp_kernel) + IFT-adjoint custom VJP
     MATRIX_FREE = 5  # O(K)-memory projected Jacobi on compact two-body
     #                  blocks; never forms JMJ^T — the LARGE-single-scene
     #                  path (ref sparse_iterations_utils.cc:624-695)
@@ -62,8 +63,8 @@ class SimConfig:
                         reference applies it only when cond(JMJt) > 1e7
                         (ensembles.cc:514-519).  `conditional_cfm=True`
                         reproduces that; False applies `cfm_always` every step
-                        (the TPU fast path — documented deviation, validated
-                        by trajectory-parity tests).
+                        (the batched fast path — documented deviation,
+                        validated by trajectory-parity tests).
       friction bound    ref eggshell/contact.cc:11 (kBoxFrictionBound = 1)
       solver iters      ref eggshell/sparse_iterations.cc:19 (500)
       solver_tol        ref eggshell/constants.h:5 (1e-9)
@@ -83,20 +84,21 @@ class SimConfig:
     solver: SolverKind = SolverKind.PGS
     solver_iters: int = 100
     # solver_tol > 0 enables the reference's early-exit convergence check
-    # (a lax.while_loop — NOT reverse-mode differentiable and worse for
-    # TPU pipelining).  The default 0.0 runs exactly `solver_iters` fixed
-    # sweeps: differentiable end-to-end and the TPU hot path.
+    # (a lax.while_loop — NOT reverse-mode differentiable, and a
+    # data-dependent exit per sweep).  The default 0.0 runs exactly
+    # `solver_iters` fixed sweeps: differentiable end-to-end and the hot
+    # path.
     solver_tol: float = 0.0
     sor_omega: float = 1.5
-    # Under-relaxation for the JACOBI solver (the parallel TPU sweep);
+    # Under-relaxation for the JACOBI solver (the parallel sweep);
     # <= ~0.3 is stable on redundant contact systems.
     jacobi_omega: float = 0.3
-    # Heavy-ball momentum for the fused JACOBI_KERNEL sweep: x + w D^-1 r
+    # Heavy-ball momentum for the Jacobi sweep: x + w D^-1 r
     # + beta (x - x_prev).  ~0.45 roughly halves the sweeps needed for a
     # given trajectory error (validated vs a 300-sweep reference on the
     # stack and cairn scenes).  0.0 = plain under-relaxed Jacobi.
     jacobi_beta: float = 0.0
-    # Block-Jacobi for the fused JACOBI_KERNEL sweep: solve each 3-row
+    # Block-Jacobi for the Jacobi sweep: solve each 3-row
     # constraint block exactly per sweep (precomputed 3x3 inverses) —
     # converges in roughly half the sweeps of the scalar update on
     # frictional stacks at equal per-sweep cost.
@@ -141,7 +143,7 @@ class SimConfig:
     pair_capacity: int = 0
     broadphase_margin: float = 0.0
     # Broadphase algorithm: "mask" = (n, n) broadcast overlap + top_k
-    # compaction (TPU default; cheapest below ~1k bodies); "sap" =
+    # compaction (the default); "sap" =
     # sorted sweep-and-prune strip (ops/broadphase.sap_select_pairs,
     # the toolkit/collision.h:22-45 sorted-list analog; O(n*window)
     # instead of O(n^2), wins at larger n).  sap_window bounds how many
@@ -150,12 +152,6 @@ class SimConfig:
     # silently dropped, so size it like the other capacity knobs.
     broadphase_kind: str = "mask"
     sap_window: int = 64
-    # Batched narrowphase dispatch: None = auto (the Pallas lane-major
-    # kernel on TPU, the vmapped XLA path elsewhere); True/False force
-    # one side.  The kernel path is differentiable everywhere (custom
-    # VJP with the XLA-twin backward, ops/collision_kernel), so CPU CI
-    # can pin the TPU configuration by setting True (interpret mode).
-    contact_kernel: Optional[bool] = None
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

@@ -6,7 +6,7 @@ object picking).
 
 The reference picks objects by rendering color IDs to an off-screen GL
 buffer and reading the pixel back.  There is no GL stack in a headless
-TPU deployment, so picking here is *geometric*: unproject the click to
+accelerator deployment, so picking here is *geometric*: unproject the click to
 a world-space ray and intersect it with every body's oriented box
 (a vectorized slab test over the whole SoA state — the array-first
 analog of a per-object ID render).  Same capability, exactly testable,

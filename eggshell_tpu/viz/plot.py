@@ -3,7 +3,7 @@ through matplotlib (Agg) instead of GL.
 
 The reference exposes Plot:: with matlab nouns (toolkit/plot.h:12-20);
 `Figure` carries the same verbs and writes PNG/SVG files (there is no
-interactive GL window in a headless TPU deployment — EggPlot-style live
+interactive GL window in a headless accelerator deployment — EggPlot-style live
 plots become saved artifacts or notebook figures).
 """
 

@@ -6,7 +6,7 @@ box-ified) with MPPI pushing the table lamp (a free box on the dining
 table) toward a target: the sample axis is sharded over ALL available
 devices via `parallel.mesh.sharded_mppi_update` (pmin/psum collectives),
 which equals the single-device update for the same key — so this script
-runs unchanged on 1 CPU, an 8-device virtual mesh, or a TPU pod slice.
+runs unchanged on 1 CPU, an 8-device virtual mesh, or several GPUs.
 
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
       python examples/living_room_mpc.py

@@ -1,6 +1,6 @@
 """Gate the bench.py solver configuration on physics parity.
 
-bench.py measures the TPU fast path with JACOBI(_KERNEL) iters=22,
+bench.py measures the batched fast path with JACOBI(_KERNEL) iters=16,
 omega=0.3, heavy-ball beta=0.45, always-on CFM 0.01, contact capacity
 20.  These tests pin THAT exact configuration's trajectories to the
 DIRECT (Murty/Schur pivot, f64) oracle path within the 1e-3 north-star
@@ -9,9 +9,9 @@ never overflow the 20-lane contact capacity — so any future perf tuning
 of iters/omega/beta/capacity that trades away accuracy fails here
 instead of silently inflating the bench number.
 
-The Pallas kernel itself is pinned to this same XLA jacobi update (equal
-sweeps/omega/beta) by tests/test_pgs_kernel.py, so XLA-path parity here
-transfers to the kernel path measured on hardware.
+The sweep kernel (ops/lcp_kernel) is pinned to this same XLA jacobi
+update (equal sweeps/omega/beta) by tests/test_lcp_kernel.py, so
+XLA-path parity here transfers to the kernel path measured on the GPU.
 """
 
 import jax

@@ -1,6 +1,6 @@
 """On-device block-cyclic-reduction direct solver (fem/block_tridiag).
 
-The TPU-native replacement for the reference's host sparse
+The on-device replacement for the reference's host sparse
 factorization (Eigen SimplicialLLT/SparseLU, toolkit/femsolver.h:134-135)
 on banded/RCM-orderable problems: parity vs dense solve, AD, RCM
 reordering, and the driven-Helmholtz wiring (solver="bcr")."""

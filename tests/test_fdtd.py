@@ -1,5 +1,5 @@
 """FDTD core tests (toolkit/fdtd analog): cavity resonance vs analytic,
-energy conservation, Pallas kernel vs jnp stencil."""
+energy conservation."""
 
 import numpy as np
 import pytest
@@ -69,36 +69,6 @@ def test_pec_mask_blocks_field():
     assert np.abs(ez[:, n // 2][pec[:, n // 2]]).max() == 0.0
     # some field leaked through the aperture
     assert np.abs(ez[:, n // 2 + 2 :]).max() > 1e-8
-
-
-def test_pallas_step_matches_jnp():
-    n = 32
-    dx = 1.0 / (n - 1)
-    dt = float(fdtd.courant_dt(dx, 2, 0.7))
-    rng = np.random.default_rng(1)
-    ez = jnp.asarray(rng.normal(size=(n, n)), jnp.float32)
-    rim = np.ones((n, n), np.float32)
-    rim[0] = rim[-1] = 0
-    rim[:, 0] = rim[:, -1] = 0
-    ez = ez * jnp.asarray(rim)
-    f = fdtd.Field2D(ez=ez, hx=jnp.zeros((n, n - 1), jnp.float32),
-                     hy=jnp.zeros((n - 1, n), jnp.float32))
-
-    want = fdtd.step_2d(f, dt, dx)
-
-    hxp = jnp.zeros((n, n), jnp.float32)
-    hyp = jnp.zeros((n, n), jnp.float32)
-    ez2, hxp2, hyp2 = fdtd.step_2d_pallas(
-        ez, hxp, hyp, jnp.ones((n, n), jnp.float32), jnp.asarray(rim),
-        dt, dx, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(ez2), np.asarray(want.ez), atol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(hxp2[:, :-1]), np.asarray(want.hx), atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(hyp2[:-1, :]), np.asarray(want.hy), atol=1e-6
-    )
 
 
 def test_energy_conservation_3d():

@@ -118,7 +118,7 @@ def test_direct_pivot_matches_compiled_reference(kind):
 
 @pytest.mark.parametrize("kind", ["toolkit_box", "murty_contact"])
 def test_projected_iterations_match_compiled_reference(kind):
-    """The PGS path (the solver family behind the TPU kernels) converges
+    """The PGS path (the solver family behind the batched Jacobi sweep) converges
     to the compiled reference's solution on the box-friction bound
     patterns (ref sparse_iterations.cc solves the same systems against
     its own Murty in its tests, :515-748)."""

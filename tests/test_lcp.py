@@ -312,3 +312,29 @@ def test_mixed_solver_info_passthrough():
     )
     assert bool(info.converged)
     assert float(info.goodness) == 0.0
+
+
+@pytest.mark.parametrize("cfm", [1e-2, 1e-6])
+def test_ift_adjoint_cholesky_matches_lu(cfm):
+    """The Cholesky adjoint (the GPU's default) equals the pivoted-LU
+    adjoint on a contact-like SPD system with clamped and free rows."""
+    rng = np.random.default_rng(7)
+    m = 24
+    J = rng.normal(size=(m, 12))
+    A = J @ J.T + cfm * np.eye(m)
+    b = rng.normal(size=m)
+    is_eq = np.arange(m) < 3
+    lo = np.where(is_eq, -np.inf, np.where(np.arange(m) % 3 == 2, 0.0, -0.2))
+    hi = np.where(is_eq, np.inf, np.where(np.arange(m) % 3 == 2, np.inf, 0.2))
+    x = lcp.solve_lcp(jnp.asarray(A), jnp.asarray(b), jnp.asarray(is_eq),
+                      jnp.asarray(lo), jnp.asarray(hi), iters=400,
+                      method="pgs")
+    g = jnp.asarray(rng.normal(size=m))
+    args = [jnp.asarray(v) for v in (A, b, is_eq, lo, hi)] + [x, g]
+    lu = lcp.ift_adjoint(*args, factorization="lu")
+    ch = lcp.ift_adjoint(*args, factorization="cholesky")
+    default = lcp.ift_adjoint(*args)
+    for a, c, d in zip(lu, ch, default):
+        np.testing.assert_allclose(np.asarray(c), np.asarray(a),
+                                   rtol=1e-8, atol=1e-8)
+        np.testing.assert_array_equal(np.asarray(d), np.asarray(a))

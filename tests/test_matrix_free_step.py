@@ -1,6 +1,6 @@
 """SolverKind.MATRIX_FREE end-to-end stepping: parity with the dense path
-at small scale, O(K)-memory stepping of the large box-pile scene, and the
-broadphase + Pallas-narrowphase composition (ref analogs:
+at small scale and O(K)-memory stepping of the large box-pile scene (ref
+analogs:
 eggshell/sparse_iterations_utils.cc:624-695 matrix-free JMJt machinery;
 toolkit/collision.h:40 broadphase)."""
 
@@ -11,7 +11,6 @@ import jax
 import jax.numpy as jnp
 
 from eggshell_tpu.physics import scenes
-from eggshell_tpu.physics.contacts import make_contacts, make_contacts_batched
 from eggshell_tpu.physics.stepper import step_ode, step_ode_batched
 from eggshell_tpu.utils.config import SimConfig, SolverKind
 
@@ -72,60 +71,6 @@ def test_box_pile_steps_and_stays_finite():
     # The bottom layer (6x6 boxes, 4 corners each) is in ground contact
     # from the start; box-box contacts accrue as the lattice collapses.
     assert int(cs.active.sum()) >= 144
-
-
-def test_broadphase_composes_with_pallas_narrowphase():
-    """pair_capacity > 0 must no longer disable the batched Pallas
-    narrowphase: the kernel runs on the broadphase-selected pair subset
-    and reproduces the XLA path's contact set."""
-    spec, st = scenes.living_room()
-    B = 3
-    states = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (B,) + x.shape), st
-    )
-    key = jax.random.PRNGKey(1)
-    states = states._replace(
-        p=states.p + 1e-3 * jax.random.normal(key, states.p.shape)
-    )
-    cfg = _cfg(contact_capacity=64, pair_capacity=8, broadphase_margin=0.1)
-
-    kern = make_contacts_batched(spec, states, cfg, use_kernel=True)
-    xla = make_contacts_batched(spec, states, cfg, use_kernel=False)
-    assert int(kern.active.sum()) == int(xla.active.sum())
-    ka, xa = np.asarray(kern.active), np.asarray(xla.active)
-    np.testing.assert_array_equal(ka, xa)
-    for field in ("position", "normal", "depth"):
-        k = np.asarray(getattr(kern, field))[ka]
-        x = np.asarray(getattr(xla, field))[xa]
-        np.testing.assert_allclose(k, x, atol=1e-12)
-    np.testing.assert_array_equal(
-        np.asarray(kern.b0)[ka], np.asarray(xla.b0)[xa]
-    )
-    np.testing.assert_array_equal(
-        np.asarray(kern.b1)[ka], np.asarray(xla.b1)[xa]
-    )
-
-
-def test_batched_kernel_step_with_broadphase():
-    """The full batched fused-kernel step runs with pair_capacity set
-    (previously the kernel path silently fell back).  Sizes kept small:
-    interpret-mode Pallas cost scales with 9 K^2 x sweeps."""
-    spec, st = scenes.living_room()
-    B = 2
-    states = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (B,) + x.shape), st
-    )
-    kcfg = _cfg(solver=SolverKind.JACOBI_KERNEL, contact_capacity=16,
-                pair_capacity=6, broadphase_margin=0.1, solver_iters=6)
-    xcfg = kcfg.replace(solver=SolverKind.JACOBI)
-    out_k = step_ode_batched(spec, states, kcfg)
-    out_x = step_ode_batched(spec, states, xcfg)
-    np.testing.assert_allclose(
-        np.asarray(out_k.p), np.asarray(out_x.p), atol=1e-8
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_k.v), np.asarray(out_x.v), atol=1e-7
-    )
 
 
 def test_pile64_matrix_free_tracks_dense_50_steps():

@@ -1,5 +1,5 @@
 """Regenerate tests/data/oracle_stack4_f64.npz — the DIRECT/f64 oracle
-trajectory used by bench.py's on-hardware `tpu_oracle_gate`.
+trajectory used by bench.py's on-device `oracle_gate`.
 
 Recipe (must match bench.py's gate scenario exactly):
   - scene: scenes.box_stack(4) — the unperturbed canonical 4-box stack

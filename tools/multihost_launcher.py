@@ -5,7 +5,7 @@ ParallelFor worker threads are its entire concurrency story); multi-host
 scaling is a new first-class component of this build.  This launcher is
 the standard `jax.distributed.initialize` pattern: one process per host
 (here: per local rank, with single-device CPU backends, so the
-cross-process collective path is exercised without TPU hardware), a
+cross-process collective path is exercised without accelerators), a
 global mesh over every process's devices, and host-local data fed via
 `jax.make_array_from_process_local_data`.
 
